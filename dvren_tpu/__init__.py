@@ -1,7 +1,7 @@
-"""dvren-tpu: a TPU-native differentiable emission-absorption volume renderer.
+"""dvren-tpu: a differentiable emission-absorption volume renderer in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-C++/CUDA project ``HinaPE/diff-volume-renderer`` (dvren), redesigned TPU-first:
+C++/CUDA project ``HinaPE/diff-volume-renderer`` (dvren):
 
 - the staged ``hp_ray -> hp_samp -> hp_int -> hp_img`` pipeline and the fused
   ``hp_samp_int_fused`` path (reference ``hotpath/include/hotpath/hp.h:162-216``)
@@ -11,7 +11,9 @@ C++/CUDA project ``HinaPE/diff-volume-renderer`` (dvren), redesigned TPU-first:
   shapes); packed views are provided at the API boundary for parity;
 - the sequential transmittance loop with early termination
   (``hotpath/src/cpu/int_cpu.cpp:173-226``) becomes a parallel cumulative
-  product - mathematically identical, O(log K) depth on the VPU;
+  product - mathematically identical, O(log K) depth; on the GPU the
+  Renderer's forward instead runs the reference's per-ray design as one
+  fused march kernel (``ops/march.py``);
 - the entire backward subsystem (``hotpath/src/cpu/diff_cpu.cpp``,
   ``src/fields/dense_grid.cpp:171-309``) is derived by ``jax.vjp`` through the
   same forward program, yielding per-sample, per-voxel *and* camera gradients

@@ -33,6 +33,7 @@ def render_to_file(ctx: Context, plan: Plan, field: DenseGridField,
     print(f"Forward stats: rays={result.ray_count} "
           f"samples={result.sample_count} "
           f"total_ms={result.stats.total_ms:.4g}")
+    print(f"Render path: {renderer.last_path}")
     print(f"Workspace bytes total={workspace.total_bytes()} "
           f"sample={workspace.sample_buffer_bytes} "
           f"integration={workspace.integration_buffer_bytes} "

@@ -30,7 +30,7 @@ class ContextOptions:
 class Context:
     """Move-free, immutable owner of runtime facts.
 
-    ``preferred_device`` may be a JAX platform name ("tpu", "cpu") or empty
+    ``preferred_device`` may be a JAX platform name ("gpu", "cpu") or empty
     for the process default backend.
     """
 

@@ -18,7 +18,7 @@ Reproduces the defaulting/validation rules of ``hp_plan_create``
   max_samples must be >= max_rays (:134-142).
 
 The plan is a frozen, hashable dataclass: it is the cache key for the
-jit-compiled executables in :mod:`dvren_tpu.render.renderer` - the TPU-native
+jit-compiled executables in :mod:`dvren_tpu.render.renderer` - the JAX
 equivalent of the reference's CUDA-Graph-per-plan model
 (``hotpath/src/cuda/graph_cuda.cu``).
 """
@@ -241,7 +241,7 @@ class Plan:
     def sample_lattice_shape(self) -> tuple[int, int]:
         """Dense ``(num_rays, max_steps)`` sample-lattice shape.
 
-        The TPU-native replacement for the reference's ragged
+        The static-shape replacement for the reference's ragged
         ``ray_offset`` packing (hp.h:135): XLA requires static shapes, so
         every ray owns ``max_steps`` slots and a validity mask marks the
         live samples.

@@ -13,7 +13,8 @@ sides here by construction.
 Gradient accumulation state is explicit and functional: ``zero_grads`` makes
 a zeroed grad pytree, :meth:`accumulate_sample_gradients` returns updated
 grads (the vjp of the field evaluation itself, so the trilinear scatter
-weights match the forward exactly; XLA scatter-add is deterministic on TPU).
+weights match the forward exactly; on the GPU the scatter-add uses atomics,
+so sums may differ in the last bits from run to run).
 """
 
 from __future__ import annotations
@@ -136,8 +137,8 @@ class DenseGridField:
     def packed_eval_planes(self, px, py, pz):
         """(sigma, r, g, b) planes via ONE gather per sample: the packed
         trilinear stencil (ops.grid.build_packed_stencil). Value-identical
-        to sigma_at_planes + color_at_planes under LINEAR interpolation,
-        ~18x faster on TPU. The packing is rebuilt in-graph from the
+        to sigma_at_planes + color_at_planes under LINEAR interpolation.
+        The packing is rebuilt in-graph from the
         current parameters (cheap shifted-slice concat), so gradients flow
         back into sigma/color exactly."""
         packed = grid_ops.build_packed_stencil(

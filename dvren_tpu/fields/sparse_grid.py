@@ -1,8 +1,9 @@
-"""Sparse brick-grid field: NanoVDB-style two-level indirection on TPU.
+"""Sparse brick-grid field: NanoVDB-style two-level indirection.
 
 The reference only ever scaffolded VDB support (CMake fetch rules that no
 target references - SURVEY.md section 0); this implements the capability
-TPU-natively for the BASELINE.json large-field configs (256^3-512^3):
+for the BASELINE.json large-field configs (256^3-512^3). It renders through
+the plain ``render`` path:
 
 - base cells (the (Z-1, Y-1, X-1) trilinear stencil lattice) are grouped
   into 8^3-cell *bricks*;
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -37,9 +39,7 @@ from dvren_tpu.utils.pytree import pytree_dataclass
 
 BRICK = 8
 _CHANNELS = 32  # channel-major: col = ch * 8 + corner (dz*4 + dy*2 + dx),
-#                 ch in (sigma, r, g, b) - the SAME layout as
-#                 ops/grid.py::build_packed_stencil_chmajor, so the fused
-#                 tile path consumes the brick table with zero relayout.
+#                 ch in (sigma, r, g, b)
 _SIGMA_CH = tuple(range(8))
 
 
@@ -96,7 +96,7 @@ class SparseGridField:
             slab_color = color[z0:z_hi + 1]
             zc = z_hi - z0
             # packed stencil for this slab of base cells, channel-major
-            # (col = ch * 8 + corner, matching build_packed_stencil_chmajor)
+            # (col = ch * 8 + corner)
             parts = [[], [], [], []]
             for dz in (0, 1):
                 for dy in (0, 1):
@@ -139,10 +139,8 @@ class SparseGridField:
         )
 
     def with_params(self, bricks: jnp.ndarray) -> "SparseGridField":
-        """Same topology (occupancy, shape, bbox), new brick table - the
-        traced-parameter hook the Renderer's replay backward drives
-        (dense grids: with_params(sigma, color); sparse: the brick table
-        IS the parameter set, topology is static)."""
+        """Same topology (occupancy, shape, bbox), new brick table: the
+        brick table IS the parameter set, topology is static."""
         return SparseGridField(
             bricks=bricks, occupancy=self.occupancy,
             grid_shape=self.grid_shape, bbox_min=self.bbox_min,
@@ -202,7 +200,6 @@ class SparseGridField:
         row_idx = slot * (BRICK ** 3) + local
         flat = self.bricks.reshape(-1, _CHANNELS)
         if flat.dtype == jnp.float32:
-            # bit-exact u16 hi/lo gather at the 2-byte element rate
             cube = grid_ops.take_rows_exact(flat, row_idx)
         else:
             cube = jnp.take(flat, row_idx, axis=0).astype(jnp.float32)
@@ -219,7 +216,8 @@ class SparseGridField:
             w = w * (~outside)[:, None]
 
         s = cube.shape[0]
-        outs = jnp.einsum("sc,skc->ks", w, cube.reshape(s, 4, 8))
+        outs = jnp.einsum("sc,skc->ks", w, cube.reshape(s, 4, 8),
+                          precision=jax.lax.Precision.HIGHEST)
         return tuple(outs[c].reshape(shape) for c in range(4))
 
     # parity protocol used by tests / generic callers

@@ -6,8 +6,9 @@ Top-level nodes:
           max_steps (required), sampling_mode ("fixed"|"stratified"),
           seed (default 0), roi {x, y, width, height},
           camera {model, K[9], c2w[12], ortho_scale},
-          options {use_fused_path, enable_graph, capture_stats, use_window,
-                   use_tiles, use_occupancy, tile_pitch}
+          options {use_fused_path, enable_graph, capture_stats, use_window}
+          (the removed tile-path keys use_tiles, use_occupancy and
+          tile_pitch are rejected)
   volume: size [nx, ny, nz], density [n], color [3n] (defaults to grayscale
           density, main.cpp:167-177), bbox_min [3], bbox_max [3],
           interp ("linear"|"nearest"), oob ("zero"|"clamp")
@@ -171,21 +172,26 @@ def _parse_volume(node: dict) -> DenseGridConfig:
     )
 
 
+_REMOVED_OPTIONS = ("use_tiles", "use_occupancy", "tile_pitch")
+
+
 def parse_config(root: dict) -> RenderConfig:
     config = RenderConfig()
     render_node = root["render"]
     config.plan = _parse_plan(render_node)
     if "options" in render_node:
         opt = render_node["options"]
-        use_tiles = opt.get("use_tiles", None)
+        removed = sorted(set(opt) & set(_REMOVED_OPTIONS))
+        if removed:
+            raise DvrenError.invalid_argument(
+                f"unsupported render option(s) {removed}: the tile path "
+                "they configured was removed; the render route is chosen "
+                "automatically")
         config.options = RenderOptions(
             use_fused_path=bool(opt.get("use_fused_path", True)),
             enable_graph=bool(opt.get("enable_graph", False)),
             capture_stats=bool(opt.get("capture_stats", True)),
             use_window=bool(opt.get("use_window", False)),
-            use_tiles=None if use_tiles is None else bool(use_tiles),
-            use_occupancy=bool(opt.get("use_occupancy", False)),
-            tile_pitch=int(opt.get("tile_pitch", 1)),
         )
     config.grid = _parse_volume(root["volume"])
     precision = root["volume"].get("table_precision", "float32")

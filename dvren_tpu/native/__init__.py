@@ -25,14 +25,11 @@ _load_error: str | None = None
 _f32p = ctypes.POINTER(ctypes.c_float)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
-_i32p = ctypes.POINTER(ctypes.c_int32)
-_i64p = ctypes.POINTER(ctypes.c_longlong)
 
 
 def _build() -> None:
-    # -ffp-contract=off: the fused scheduler (dvn_build_runs) must match
-    # numpy's f32 arithmetic BIT-exactly; a contracted mul+add FMA would
-    # change float bits (schedules are verified byte-identical).
+    # -ffp-contract=off: the double-precision referee keeps the exact
+    # operation order of its source (no contracted mul+add FMAs).
     cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared",
            "-fPIC", "-std=c++17", _SRC, "-o", _LIB]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
@@ -68,30 +65,6 @@ def _configure(lib) -> None:
     lib.dvn_write_ppm.restype = ctypes.c_int
     lib.dvn_write_ppm.argtypes = [
         ctypes.c_char_p, _f32p, ctypes.c_int, ctypes.c_int]
-    lib.dvn_pack_runs.restype = ctypes.c_int
-    lib.dvn_pack_runs.argtypes = [
-        _i64p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        _i32p, _i32p, _i64p, _i32p, _i32p, _i64p, _i32p]
-    lib.dvn_tighten_occupancy.restype = ctypes.c_int
-    lib.dvn_tighten_occupancy.argtypes = [
-        _f32p, _f32p, _i64p, _i64p, _f32p, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int, _f32p, _f32p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        _u8p, ctypes.c_longlong, _i32p, _i32p]
-    lib.dvn_build_runs.restype = ctypes.c_int
-    lib.dvn_build_runs.argtypes = [
-        _f32p, _f32p, _i64p, _u8p, _i64p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_int,
-        _f32p, ctypes.c_longlong, ctypes.c_longlong,
-        _f32p, _f32p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_longlong, ctypes.c_int,
-        _f32p, _f32p, _i32p, _i32p, _i64p, _i32p, _i32p, _i64p, _i32p]
 
 
 def _get():
@@ -105,7 +78,7 @@ def _get():
                 _build()
             lib = ctypes.CDLL(_LIB)
             _configure(lib)
-            if lib.dvn_abi_version() != 3:
+            if lib.dvn_abi_version() != 4:
                 raise RuntimeError("native ABI version mismatch")
             _lib = lib
         except Exception as exc:  # pragma: no cover - toolchain-dependent
@@ -243,109 +216,3 @@ def write_ppm(path: str, image: np.ndarray) -> None:
     rc = lib.dvn_write_ppm(path.encode(), _ptr(image, _f32p), w, h)
     if rc != 0:
         raise RuntimeError(f"dvn_write_ppm failed: {rc}")
-
-
-def pack_runs(flat: np.ndarray, pitch: int, sentinel: int,
-              umax: int, pmax: int):
-    """Native tile-run packing (the scheduler's hot sort/unique/lane
-    phase); see dvn_pack_runs in dvren_native.cpp and the byte-identical
-    numpy reference render/tiled.py::_pack_runs_numpy."""
-    lib = _get()
-    flat = np.ascontiguousarray(flat, np.int64)
-    rows, cols = flat.shape
-    lidx = np.empty((rows, cols), np.int32)
-    lanes_run = np.empty(rows, np.int32)
-    ucell = np.empty((rows, umax), np.int64)
-    ulane = np.empty((rows, umax), np.int32)
-    n_u = np.empty(rows, np.int32)
-    upair = np.empty((rows, pmax), np.int64)
-    n_p = np.empty(rows, np.int32)
-    rc = lib.dvn_pack_runs(
-        _ptr(flat, _i64p), rows, cols, pitch, sentinel, umax, pmax,
-        _ptr(lidx, _i32p), _ptr(lanes_run, _i32p), _ptr(ucell, _i64p),
-        _ptr(ulane, _i32p), _ptr(n_u, _i32p), _ptr(upair, _i64p),
-        _ptr(n_p, _i32p))
-    if rc != 0:
-        raise RuntimeError(f"dvn_pack_runs failed: {rc}")
-    return lidx, lanes_run, ucell, ulane, n_u, upair, n_p
-
-
-def build_runs(ot, dtn, safe_ids, live_r, ke, nc, n_sub, t_near, t_far,
-               dt, nudge, k_max, jitter, jn, bbox_lo, inv_ext, grid_nxyz,
-               pitch, sentinel, umax, pmax, cell_scale=1):
-    """Fused native lattice + run-pack (the whole per-(tile, chunk)
-    scheduler hot loop; dvn_build_runs). Returns (st_l, m_l, lidx,
-    lanes_run, ucell, ulane, n_u, upair, n_p). ``cell_scale=2`` packs
-    SUPERCELL ids and ORs each sample's cell-within-supercell bits into
-    lidx at bit 16."""
-    lib = _get()
-    t_cnt = ot.shape[0]
-    ot = np.ascontiguousarray(ot, np.float32)
-    dtn = np.ascontiguousarray(dtn, np.float32)
-    safe_ids = np.ascontiguousarray(safe_ids, np.int64)
-    live_u8 = np.ascontiguousarray(live_r, np.uint8)
-    ke = np.ascontiguousarray(ke, np.int64)
-    nx, ny, nz = grid_nxyz
-    rows = t_cnt * nc * n_sub
-    sub_cols = (16 // n_sub) * 128
-    st_l = np.empty((t_cnt, nc, 16, 128), np.float32)
-    m_l = np.empty((t_cnt, nc, 16, 128), np.float32)
-    lidx = np.empty((rows, sub_cols), np.int32)
-    lanes_run = np.empty(rows, np.int32)
-    ucell = np.empty((rows, umax), np.int64)
-    ulane = np.empty((rows, umax), np.int32)
-    n_u = np.empty(rows, np.int32)
-    upair = np.empty((rows, pmax), np.int64)
-    n_p = np.empty(rows, np.int32)
-    if jitter is not None:
-        jit = np.ascontiguousarray(jitter, np.float32)
-        jptr, jk = _ptr(jit, _f32p), jit.shape[1]
-    else:
-        jptr, jk, jn = None, 0, 0
-    lo = np.ascontiguousarray(bbox_lo, np.float32)
-    inv = np.ascontiguousarray(inv_ext, np.float32)
-    rc = lib.dvn_build_runs(
-        _ptr(ot, _f32p), _ptr(dtn, _f32p), _ptr(safe_ids, _i64p),
-        _ptr(live_u8, _u8p), _ptr(ke, _i64p),
-        t_cnt, nc, n_sub, t_near, t_far, dt, nudge, k_max,
-        jptr, jn, jk, _ptr(lo, _f32p), _ptr(inv, _f32p),
-        nx, ny, nz, pitch, sentinel, umax, pmax, int(cell_scale),
-        _ptr(st_l, _f32p), _ptr(m_l, _f32p), _ptr(lidx, _i32p),
-        _ptr(lanes_run, _i32p), _ptr(ucell, _i64p), _ptr(ulane, _i32p),
-        _ptr(n_u, _i32p), _ptr(upair, _i64p), _ptr(n_p, _i32p))
-    if rc != 0:
-        raise RuntimeError(f"dvn_build_runs failed: {rc}")
-    return st_l, m_l, lidx, lanes_run, ucell, ulane, n_u, upair, n_p
-
-
-def tighten_occupancy(o, d, ke, cnt, jitter, t_near, t_far, dt, nudge,
-                      k_max, lo, inv_ext, grid_nxyz, cell_empty):
-    """Native occupancy window tightening (dvn_tighten_occupancy):
-    forward/backward scan to the first/last non-empty-cell step,
-    skipping the interior."""
-    lib = _get()
-    n = o.shape[0]
-    o = np.ascontiguousarray(o, np.float32)
-    d = np.ascontiguousarray(d, np.float32)
-    ke = np.ascontiguousarray(ke, np.int64)
-    cnt = np.ascontiguousarray(cnt, np.int64)
-    if jitter is not None:
-        jit = np.ascontiguousarray(jitter, np.float32)
-        jptr, jk = _ptr(jit, _f32p), jit.shape[1]
-    else:
-        jptr, jk = None, 0
-    lo = np.ascontiguousarray(lo, np.float32)
-    inv = np.ascontiguousarray(inv_ext, np.float32)
-    empty_u8 = np.ascontiguousarray(cell_empty, np.uint8)
-    nx, ny, nz = grid_nxyz
-    ke_out = np.empty(n, np.int32)
-    cnt_out = np.empty(n, np.int32)
-    rc = lib.dvn_tighten_occupancy(
-        _ptr(o, _f32p), _ptr(d, _f32p), _ptr(ke, _i64p),
-        _ptr(cnt, _i64p), jptr, jk, t_near, t_far, dt, nudge, k_max,
-        _ptr(lo, _f32p), _ptr(inv, _f32p), nx, ny, nz,
-        _ptr(empty_u8, _u8p), n, _ptr(ke_out, _i32p),
-        _ptr(cnt_out, _i32p))
-    if rc != 0:
-        raise RuntimeError(f"dvn_tighten_occupancy failed: {rc}")
-    return ke_out, cnt_out

@@ -1,6 +1,6 @@
 """Image composition: scatter per-ray results into image planes.
 
-TPU-native replacement for ``img_generate_cpu``
+Vectorized replacement for ``img_generate_cpu``
 (``hotpath/src/cpu/img_cpu.cpp:110-188``). The reference walks rays in order
 with first-write / accumulate semantics per pixel:
 
@@ -10,7 +10,7 @@ with first-write / accumulate semantics per pixel:
 
 Because those updates are order-independent reductions, the whole pass
 collapses to segment reductions keyed by pixel_id (sum / product / min),
-which XLA lowers to deterministic scatters on TPU:
+which XLA lowers to scatters (atomics on the GPU):
 
     image   = segment_sum(radiance)
     T       = segment_prod(T_ray)                (hit pixels)

@@ -1,8 +1,8 @@
 """Instant-NGP-style multiresolution hash encoding + tiny MLP heads.
 
-TPU-native replacement for ``hotpath/src/cpu/hash_mlp_cpu.cpp:9-281`` (and
+Vectorized replacement for ``hotpath/src/cpu/hash_mlp_cpu.cpp:9-281`` (and
 the never-wired CUDA twin ``hash_mlp_cuda.cu``): batched over samples so the
-two MLP layers run as real matmuls on the MXU instead of per-sample scalar
+two MLP layers run as real matmuls instead of per-sample scalar
 loops. Fully differentiable - the reference is forward-only (SURVEY.md #10),
 so hash-MLP training is a new capability.
 
@@ -50,8 +50,7 @@ class HashMLPSpec:
     # base*exp(l*ln(finest/base)/(L-1)) (hash_mlp_cpu.cpp:31-34) -
     # whose f32 exp() lands 1-2 ulp off integers (e.g. 7.9999995 for a
     # 4..32 ladder). Integer power-of-two ladders (4, 8, 16, 32) make
-    # the per-level cell arithmetic exact, which the NGP-scale fused
-    # grid path requires (ops/hash_grid.py::grid_path_ok).
+    # the per-level cell arithmetic exact.
     resolutions: tuple | None = None
 
     @property
@@ -193,13 +192,12 @@ def pack_params(params: dict, spec: HashMLPSpec) -> jnp.ndarray:
 
 
 def eval_planes(px, py, pz, params: dict, spec: HashMLPSpec):
-    """(sigma, r, g, b) planes - the TPU hot path for hash-MLP fields.
+    """(sigma, r, g, b) planes - the hot path for hash-MLP fields.
 
     Value-identical to :func:`eval_sigma` + :func:`eval_color` but laid out
-    for TPU: the feature axis leads (no minor-dim padding), the hash-table
+    feature-axis-leading (no minor dim of 2 or 3), the hash-table
     lookup is a weighted one-hot contraction (exact by linearity, and the
-    tables are tiny - T entries - so the contraction is trivial on the
-    MXU), and the encoding is computed once for both heads (the reference
+    tables are tiny - T entries - so the contraction is trivial), and the encoding is computed once for both heads (the reference
     encodes twice, hash_mlp_cpu.cpp:227/274).
     """
     shape = px.shape
@@ -267,8 +265,8 @@ def eval_planes(px, py, pz, params: dict, spec: HashMLPSpec):
 def eval_sigma(positions, params: dict, spec: HashMLPSpec):
     """Sigma head (hash_mlp_cpp:95-119): ReLU MLP, non-negative output.
 
-    float32 parity needs full-precision dots (the MXU default would run
-    bf16 passes); these matrices are tiny, so HIGHEST costs nothing.
+    float32 parity needs full-precision dots (a default float32 dot may run
+    in TF32 on the GPU); these matrices are tiny, so HIGHEST costs nothing.
     """
     enc = encode(positions, params["hash_table"], spec)
     hidden = jnp.maximum(

@@ -1,6 +1,6 @@
 """Emission-absorption transmittance integration over the dense lattice.
 
-TPU-native replacement for the reference's sequential per-ray loop
+Vectorized replacement for the reference's sequential per-ray loop
 (``hotpath/src/cpu/int_cpu.cpp:98-229``). The key redesign: the recurrence
 
     alpha_k = 1 - exp(-sigma_k * dt_k)          (expm1, Taylor below 1e-4)
@@ -74,8 +74,7 @@ def compute_alpha(sigma, dt):
 def _color_planes(color):
     """Accept color as (N, K, 3) or as a tuple of three (N, K) planes.
 
-    The SoA tuple is the hot-path form: (N, K, 3) arrays pad the minor dim
-    to the 128-lane tile on TPU (42x blowup); planes tile perfectly.
+    The SoA tuple is the hot-path form (no minor dimension of 3).
     """
     if isinstance(color, (tuple, list)):
         return color[0], color[1], color[2]

@@ -1,6 +1,6 @@
 """Camera ray generation: pinhole and orthographic, ROI-aware, differentiable.
 
-TPU-native replacement for the reference ray kernels
+Vectorized replacement for the reference ray kernels
 (``hotpath/src/cpu/ray_cpu.cpp:122-229``, ``hotpath/src/cuda/ray_cuda.cu:29-94``):
 one vectorized jnp program over the ROI pixel lattice instead of a per-pixel
 loop / per-thread kernel. Camera intrinsics and extrinsics enter as traced
@@ -108,8 +108,8 @@ def generate_rays(
     trans = c2w[:, 3]
 
     # The 3x3 rotation is applied with explicit component math: a (N,3)x(3,3)
-    # matmul would route through the dot default precision (bf16 passes on
-    # TPU), and camera math must stay full float32.
+    # matmul would route through the dot default precision (TF32 on the
+    # GPU), and camera math must stay full float32.
     if plan.camera.model == CameraModel.PINHOLE:
         # Pixel-center convention (+0.5), ray_cpu.cpp:189-193.
         u = px + 0.5

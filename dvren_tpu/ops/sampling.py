@@ -1,6 +1,6 @@
 """Sample lattice generation: fixed-dt ray marching on a dense (N, K) grid.
 
-TPU-native replacement for ``samp_generate_cpu``
+Vectorized replacement for ``samp_generate_cpu``
 (``hotpath/src/cpu/samp_cpu.cpp:151-313``). The reference emits a ragged,
 packed sample stream with per-ray prefix offsets; XLA requires static shapes,
 so every ray owns ``max_steps`` slots and a boolean validity mask marks live
@@ -46,10 +46,8 @@ class SampleLattice:
     px, py, pz: (N, K) float32  world positions, structure-of-arrays
 
     Positions are stored as three coordinate planes, NOT an (N, K, 3)
-    array: TPU tiles the two minor dimensions, so a minor dim of 3 pads to
-    the 128-lane width - a 42x memory/bandwidth blowup measured at ~1000x
-    slowdown end-to-end. SoA planes tile perfectly (K on lanes, rays on
-    sublanes). Use :attr:`positions` only at API/parity boundaries.
+    array: a minor dimension of 3 makes every consumer stride over it.
+    Use :attr:`positions` only at API/parity boundaries.
     """
 
     t: jnp.ndarray

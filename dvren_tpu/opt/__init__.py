@@ -2,7 +2,6 @@ from dvren_tpu.opt.fit import (
     FitConfig,
     FitResult,
     fit_dense_grid,
-    make_train_step,
     mse,
     psnr,
     render_views,
@@ -12,7 +11,6 @@ __all__ = [
     "FitConfig",
     "FitResult",
     "fit_dense_grid",
-    "make_train_step",
     "mse",
     "psnr",
     "render_views",

@@ -1,9 +1,10 @@
 """Device mesh construction helpers.
 
 The reference has no distributed layer at all (SURVEY.md section 2.4); this
-is the idiomatic TPU extension point: a 1-D (or user-shaped) ``jax.sharding
+is the idiomatic JAX extension point: a 1-D (or user-shaped) ``jax.sharding
 .Mesh`` whose axes carry data parallelism over rays/views, with XLA
-collectives over ICI replacing the reference's "nothing".
+collectives replacing the reference's "nothing". The GPUs of one host are
+joined all to all, so a flat mesh needs no topology.
 """
 
 from __future__ import annotations

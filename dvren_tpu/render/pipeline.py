@@ -4,7 +4,7 @@ The staged pipeline mirrors the reference call sequence
 ``hp_ray -> hp_samp -> hp_int -> hp_img`` (SURVEY.md section 3.1); the fused
 entry is one composed function - under ``jax.jit`` XLA fuses ray generation,
 sampling, field gathers and the integration cumprod into a single executable,
-the TPU-native equivalent of ``hp_samp_int_fused`` + CUDA Graph replay
+the plain-JAX equivalent of ``hp_samp_int_fused`` + CUDA Graph replay
 (``hotpath/src/cuda/graph_cuda.cu``). Both paths compute identical values by
 construction (the reference proves the same with a bitwise staged-vs-fused
 test, hp_runner.cpp:1737-1760; here the fused path literally composes the
@@ -134,7 +134,7 @@ def render_image(plan: Plan, field, **kwargs) -> jnp.ndarray:
 def default_ray_tile(plan: Plan, budget_samples: int = 1 << 22) -> int:
     """Ray-tile size bounding the live sample workspace to ~budget samples.
 
-    The TPU analogue of the reference's workspace sizing
+    The JAX analogue of the reference's workspace sizing
     (renderer.cpp:448-464): instead of a caller-provided scratch arena, the
     streaming path bounds XLA's live temporaries by processing ray blocks of
     fixed shape. 2^22 samples keeps the per-tile buffers (positions, color,
@@ -145,6 +145,32 @@ def default_ray_tile(plan: Plan, budget_samples: int = 1 << 22) -> int:
     return int(min(tile, plan.ray_count))
 
 
+# Residual bytes a streamed VJP without remat keeps per lattice sample when
+# it also returns camera gradients (on an H100 at 512^2 x 128 steps the
+# Renderer's backward peaked at 9.94 GB for 33.5 M samples; 3.18 GB without
+# camera gradients).
+STREAM_RESIDUAL_BYTES = 300
+
+
+def remat_residual_budget() -> int:
+    """Bytes of saved residuals a backward may keep instead of
+    rematerializing: a quarter of what the default device lets JAX
+    allocate, or 4 GiB where the backend does not report a limit."""
+    stats = jax.devices()[0].memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    return int(limit) // 4 if limit else 4 << 30
+
+
+def stream_needs_remat(plan: Plan, budget: int | None = None) -> bool:
+    """Whether a streamed backward must rematerialize each tile: the whole
+    frame's residuals would exceed ``budget`` (default
+    :func:`remat_residual_budget`)."""
+    samples = plan.ray_count * plan.sampling.max_steps
+    if budget is None:
+        budget = remat_residual_budget()
+    return samples * STREAM_RESIDUAL_BYTES > budget
+
+
 def render_streamed(
     plan: Plan,
     field,
@@ -153,7 +179,7 @@ def render_streamed(
     ortho_scale: jnp.ndarray | None = None,
     ray_tile: int | None = None,
     jitter: jnp.ndarray | None = None,
-    remat: bool = True,
+    remat: bool | None = None,
 ) -> ImagePlanes:
     """Forward render streaming over fixed-size ray tiles (production path).
 
@@ -162,11 +188,16 @@ def render_streamed(
     change sampling), but peak memory is bounded by one tile's lattice
     instead of the whole frame - the fixed-workspace model of the reference
     engine, realized as ``lax.map`` over ray blocks inside one executable.
-    Differentiable; with ``remat`` (default) each tile's lattice is
-    rematerialized in the backward pass instead of stored, so fwd+bwd peak
-    memory is also one tile (the reference stores 4 aux floats/sample
-    instead - int_cpu.cpp:201-207 - which at 512^2 x 128 would be GBs).
+    Differentiable; with ``remat`` each tile's lattice is rematerialized in
+    the backward pass instead of stored, so fwd+bwd peak memory is also one
+    tile (the reference stores 4 aux floats/sample instead -
+    int_cpu.cpp:201-207). Without remat the backward reuses the saved
+    residuals and skips a second lattice evaluation. Default (None): remat
+    only when the frame's residuals would exceed the budget
+    (:func:`stream_needs_remat`).
     """
+    if remat is None:
+        remat = stream_needs_remat(plan)
     tile = ray_tile or default_ray_tile(plan)
     n = plan.ray_count
     n_tiles = -(-n // tile)

@@ -30,8 +30,9 @@ def scene(max_samples=0):
 
 def test_backward_determinism_memcmp():
     """Repeated Backward produces bit-identical gradients (the reference
-    checks this to catch atomicAdd nondeterminism; XLA scatters on TPU are
-    deterministic by construction)."""
+    checks this to catch atomicAdd nondeterminism; XLA's CPU scatters are
+    deterministic; on the GPU they are atomics, and chip_smoke.py reports
+    the run-to-run difference there)."""
     plan, field = scene()
     dl = np.random.default_rng(3).uniform(
         -1, 1, (plan.ray_count, 3)).astype(np.float32)

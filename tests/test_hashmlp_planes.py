@@ -1,4 +1,4 @@
-"""TPU-layout hash-MLP eval (features-leading, one-hot encode) ==
+"""Features-leading hash-MLP eval (one-hot encode) ==
 the reference-layout eval, values and gradients."""
 
 import numpy as np

@@ -193,117 +193,3 @@ def test_orthographic_end_to_end_vs_native_oracle():
         ref["radiance"], atol=2e-3)
     np.testing.assert_allclose(
         fr.transmittance, ref["transmittance"], atol=2e-3)
-
-
-def test_native_pack_runs_matches_numpy():
-    """The native scheduler core (dvn_pack_runs) is byte-identical to the
-    numpy reference across randomized rows incl. all-masked rows, single
-    uniques, duplicates, and bank-overflow runs, at both pitches."""
-    import numpy as np
-    import pytest
-    from dvren_tpu import native
-    from dvren_tpu.render.tiled import (MAX_CELLS, _SENTINEL,
-                                        _pack_runs_numpy)
-
-    if not native.available():
-        pytest.skip(f"native lib unavailable: {native.load_error()}")
-
-    rng = np.random.default_rng(7)
-    rows, cols = 64, 512  # > umax: exercises the compact-width clamp
-    flat = rng.integers(0, 40, (rows, cols)).astype(np.int64)
-    flat[rng.random((rows, cols)) < 0.3] = _SENTINEL  # masked samples
-    flat[0, :] = _SENTINEL                            # fully masked row
-    flat[1, :] = 5                                    # single unique
-    flat[2, :] = np.arange(cols)                      # > umax uniques
-    # a row guaranteed past the 2-bank limit (sub_bad downstream)
-    flat[3, :] = rng.permutation(cols) * 3
-
-    for pitch in (1, 2):
-        umax = min(cols, 2 * MAX_CELLS + 1)
-        pmax = min(cols, MAX_CELLS + 1)
-        ref = _pack_runs_numpy(flat, pitch, umax, pmax)
-        got = native.pack_runs(flat, pitch, int(_SENTINEL), umax, pmax)
-        names = ("lidx", "lanes_run", "ucell", "ulane", "n_u",
-                 "upair", "n_p")
-        for name, a, b in zip(names, ref, got):
-            np.testing.assert_array_equal(
-                np.asarray(a), np.asarray(b), err_msg=f"{name} pitch={pitch}")
-
-
-def test_native_build_schedule_byte_identical(monkeypatch):
-    """Whole schedules built by the native core and the numpy reference
-    are BIT-identical, leaf for leaf (both pitches; stratified jitter).
-    tools/sched_hash.py covers more configs out-of-suite."""
-    import jax
-    import numpy as np
-    import pytest
-    from dvren_tpu import native
-    from dvren_tpu.render.pipeline import plan_jitter_table
-    from dvren_tpu.render.tiled import build_tiled_schedule
-    from tests.test_tiled import scene
-
-    if not native.available():
-        pytest.skip(f"native lib unavailable: {native.load_error()}")
-
-    from dvren_tpu.core.plan import SamplingMode
-    plan, field = scene(mode=SamplingMode.STRATIFIED, n=12)
-    jitter = plan_jitter_table(plan)
-    for pitch in (1, 2):
-        monkeypatch.setenv("DVREN_NATIVE_SCHED", "1")
-        a = build_tiled_schedule(plan, field, jitter=jitter, pitch=pitch)
-        monkeypatch.setenv("DVREN_NATIVE_SCHED", "0")
-        b = build_tiled_schedule(plan, field, jitter=jitter, pitch=pitch)
-        la, ta = jax.tree.flatten(a)
-        lb, tb = jax.tree.flatten(b)
-        assert str(ta) == str(tb)
-        for x, y in zip(la, lb):
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
-def test_native_occupancy_tighten_byte_identical(monkeypatch):
-    """Occupancy-tightened schedules built by the native core and the
-    numpy reference are BIT-identical, leaf for leaf (SDF-shell field so
-    the window interior actually trims; both pitches; stratified jitter
-    and fixed midpoints). Covers native/dvren_native.cpp::
-    dvn_tighten_occupancy vs render/tiled.py::_tighten_windows_by_occupancy."""
-    import jax
-    import numpy as np
-    import pytest
-    from dvren_tpu import native
-    from dvren_tpu.core.plan import SamplingMode
-    from dvren_tpu import DenseGridConfig, DenseGridField
-    from dvren_tpu.render.pipeline import plan_jitter_table
-    from dvren_tpu.render.tiled import build_tiled_schedule
-    from tests.test_tiled import scene
-
-    if not native.available():
-        pytest.skip(f"native lib unavailable: {native.load_error()}")
-
-    rng = np.random.default_rng(5)
-    n = 16
-    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
-    r = np.sqrt((xs - 0.5) ** 2 + (ys - 0.5) ** 2 + (zs - 0.5) ** 2)
-    sigma = np.where(np.abs(r - 0.33) < 0.08, 20.0, 0.0).astype(np.float32)
-    color = rng.uniform(0, 1, (n, n, n, 3)).astype(np.float32)
-
-    for mode in (SamplingMode.FIXED, SamplingMode.STRATIFIED):
-        plan, _ = scene(mode=mode)
-        field = DenseGridField.create(DenseGridConfig(
-            resolution=(n, n, n), sigma=sigma.reshape(-1),
-            color=color.reshape(-1)))
-        jitter = (plan_jitter_table(plan)
-                  if mode == SamplingMode.STRATIFIED else None)
-        for pitch in (1, 2):
-            monkeypatch.setenv("DVREN_NATIVE_SCHED", "1")
-            a = build_tiled_schedule(plan, field, jitter=jitter,
-                                     occupancy=True, pitch=pitch)
-            monkeypatch.setenv("DVREN_NATIVE_SCHED", "0")
-            b = build_tiled_schedule(plan, field, jitter=jitter,
-                                     occupancy=True, pitch=pitch)
-            la, ta = jax.tree.flatten(a)
-            lb, tb = jax.tree.flatten(b)
-            assert str(ta) == str(tb)
-            for x, y in zip(la, lb):
-                np.testing.assert_array_equal(
-                    np.asarray(x), np.asarray(y),
-                    err_msg=f"mode={mode} pitch={pitch}")

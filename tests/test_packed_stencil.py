@@ -125,58 +125,3 @@ def test_take_rows_exact_out_of_range_clips_fwd_and_bwd():
         lambda t: jnp.vdot(jnp.take(t, idx, axis=0, mode="clip"), ct))(table)
     np.testing.assert_array_equal(np.asarray(g_fast), np.asarray(g_ref))
     assert np.asarray(g_fast)[2].sum() == 4.0  # OOB cotangent landed on edge
-
-
-def test_fullpitch_matches_chmajor_on_real_cells():
-    """The full-pitch table (Pallas shift-stack + transpose build) holds
-    exactly the chmajor table's values at every REAL cell id; its adjoint
-    matches AD through the chmajor build."""
-    import jax
-    import jax.numpy as jnp
-    from dvren_tpu.ops.grid import (build_packed_stencil_chmajor,
-                                    build_packed_stencil_fullpitch)
-
-    rng = np.random.default_rng(11)
-    z, y, x = 5, 6, 7
-    sigma = jnp.asarray(rng.normal(size=(z, y, x)).astype(np.float32))
-    color = jnp.asarray(rng.normal(size=(z, y, x, 3)).astype(np.float32))
-
-    ch = np.asarray(build_packed_stencil_chmajor(sigma, color)).reshape(
-        -1, 32)
-    fp = np.asarray(build_packed_stencil_fullpitch(sigma, color))
-    for iz in range(z - 1):
-        for iy in range(y - 1):
-            for ix in range(x - 1):
-                c_cell = (iz * (y - 1) + iy) * (x - 1) + ix
-                f_cell = (iz * y + iy) * x + ix
-                np.testing.assert_array_equal(ch[c_cell], fp[f_cell])
-
-    # adjoint parity: random cotangent restricted to real cells
-    ct = rng.normal(size=fp.shape).astype(np.float32)
-    real = np.zeros(fp.shape[0], bool)
-    for iz in range(z - 1):
-        for iy in range(y - 1):
-            real[(iz * y + iy) * x:(iz * y + iy) * x + (x - 1)] = True
-    ct[~real] = 0.0
-    ct_j = jnp.asarray(ct)
-
-    def loss_fp(s, c):
-        return jnp.vdot(build_packed_stencil_fullpitch(s, c), ct_j)
-
-    # equivalent chmajor cotangent (same values at real cells)
-    ct_ch = np.zeros((z - 1, y - 1, x - 1, 32), np.float32)
-    for iz in range(z - 1):
-        for iy in range(y - 1):
-            for ix in range(x - 1):
-                ct_ch[iz, iy, ix] = ct[(iz * y + iy) * x + ix]
-    ct_ch_j = jnp.asarray(ct_ch)
-
-    def loss_ch(s, c):
-        return jnp.vdot(build_packed_stencil_chmajor(s, c), ct_ch_j)
-
-    g_fp = jax.grad(loss_fp, argnums=(0, 1))(sigma, color)
-    g_ch = jax.grad(loss_ch, argnums=(0, 1))(sigma, color)
-    np.testing.assert_allclose(np.asarray(g_fp[0]), np.asarray(g_ch[0]),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(g_fp[1]), np.asarray(g_ch[1]),
-                               rtol=1e-6, atol=1e-6)

@@ -164,89 +164,6 @@ def test_windowed_renderer_backward_and_replay():
     np.testing.assert_allclose(bw.color, bf.color, rtol=1e-4, atol=1e-7)
 
 
-def test_explicit_use_window_beats_auto_tiles(monkeypatch):
-    """On TPU the auto-tiled default must NOT override an explicit
-    use_window=True: users select the window path for camera gradients,
-    which tiled mode zeroes (the schedule bakes the camera)."""
-    import jax
-    plan, field = windowed_scene()
-    r = Renderer(Context.create(), plan, RenderOptions(use_window=True))
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert not r._use_tiles(field)
-    # and an explicit use_tiles=True still wins over the default window off
-    r2 = Renderer(Context.create(), plan, RenderOptions(use_tiles=True))
-    assert r2._use_tiles(field)
-
-
-@pytest.mark.slow
-def test_auto_tiles_rescues_fine_grid(monkeypatch):
-    """Fine grids under wide frusta overflow the 16px/8px slot tables
-    (round 2 demoted exactly this class to the windowed path); auto mode
-    now rescues them with 4px sub-tiles - one block row per sub-tile,
-    <= 128 samples so a run can never exceed the 256-cell limit - and
-    stays on the kernel with real camera gradients."""
-    import jax
-    from dvren_tpu.ops import fused_tiles, packed_transpose
-    rng = np.random.default_rng(4)
-    n = 96  # fine grid against a tiny image: 16px/8px tiles all overflow
-    plan = Plan.create(PlanConfig(
-        width=32, height=32, t_near=0.3, t_far=2.3, seed=5,
-        camera=CameraConfig(
-            k=(38.0, 0, 16.0, 0, 38.0, 16.0, 0, 0, 1),
-            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)),
-        sampling=SamplingConfig(dt=0.04, max_steps=48)))
-    field = DenseGridField.create(DenseGridConfig(
-        resolution=(n, n, n),
-        sigma=rng.uniform(0.5, 4.0, n ** 3),
-        color=rng.uniform(0, 1, 3 * n ** 3)))
-    r = Renderer(Context.create(), plan)  # auto mode
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # the faked TPU backend must not reach Mosaic on the CPU test host
-    monkeypatch.setattr(fused_tiles, "_interpret_default", lambda: True)
-    monkeypatch.setattr(packed_transpose, "_interpret_default",
-                        lambda: True)
-    fr = r.forward(field)
-    notes = " ".join(fr.stats.notes)
-    assert "tiled_subtiled_4px" in notes
-    assert "tiled_path" in notes
-    assert "tiled_demoted_to_windowed" not in notes
-    full = render(plan, field).planes
-    np.testing.assert_allclose(
-        np.asarray(fr.image).reshape(plan.height, plan.width, 3),
-        np.asarray(full.image), atol=1e-4)
-    # backward rides the tiled replay, with REAL camera grads
-    br = r.backward(field, np.ones(plan.ray_count * 3, np.float32))
-    assert br.sigma.shape == (n ** 3,)
-    assert np.abs(br.camera).sum() > 0
-
-
-def test_auto_tiles_demotes_on_heavy_fallback(monkeypatch):
-    """The demotion safety net: when even the finest rescue schedule
-    leaves most rays in fallback, auto mode runs the windowed path
-    instead of paying the tiled machinery for nothing."""
-    import dataclasses
-    import jax
-    from dvren_tpu.render import tiled as tiled_mod
-    plan, field = windowed_scene()
-    real_build = tiled_mod.build_tiled_schedule
-
-    def heavy_build(*a, **kw):
-        s = real_build(*a, **kw)
-        return dataclasses.replace(s, fallback_rays=s.total_rays)
-
-    monkeypatch.setattr(tiled_mod, "build_tiled_schedule", heavy_build)
-    r = Renderer(Context.create(), plan)  # auto mode
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    fr = r.forward(field)
-    notes = " ".join(fr.stats.notes)
-    assert "tiled_demoted_to_windowed" in notes
-    assert "windowed_path" in notes
-    # backward must route through the windowed schedule, with camera grads
-    br = r.backward(field, np.ones(plan.ray_count * 3, np.float32))
-    assert br.sigma.shape == np.asarray(field.sigma).reshape(-1).shape
-    assert np.abs(br.camera).sum() > 0
-
-
 def test_windowed_renderer_rejects_unbounded_fields():
     plan, _ = windowed_scene()
     from dvren_tpu import HashMLPConfig, HashMLPField
@@ -265,23 +182,3 @@ def test_windowed_renderer_backward_rejects_sparse_fields():
     dl = np.zeros((plan.ray_count, 3), np.float32)
     with pytest.raises(DvrenError):
         r.backward(sparse, dl)
-
-
-def test_tiled_stage_stats_fill():
-    """capture_stats on the tiled path fills the per-stage ms via the
-    decomposed replay (sample=tables, integrate=kernel, compose=compose;
-    renderer.cpp:258-385 parity). The probe times by fetching output
-    bytes across cycled field variants - never block_until_ready on
-    value-identical calls (relay hazard #3)."""
-    plan, field = scene()
-    r = Renderer(Context.create(), plan,
-                 RenderOptions(use_tiles=True, capture_stats=True))
-    fr = r.forward(field)
-    assert "tiled_path" in fr.stats.notes
-    assert any(n.startswith("stage_ms=") for n in fr.stats.notes), \
-        fr.stats.notes
-    assert fr.stats.sample_ms > 0 and fr.stats.integrate_ms > 0 \
-        and fr.stats.compose_ms > 0
-    # cached per (schedule, field meta): a second forward reuses it
-    fr2 = r.forward(field)
-    assert fr2.stats.sample_ms == fr.stats.sample_ms

@@ -6,7 +6,6 @@ comparison against the independent scalar oracle."""
 
 import numpy as np
 import jax.numpy as jnp
-import pytest
 
 from dvren_tpu import (
     CameraConfig, Context, DenseGridConfig, DenseGridField, Plan, PlanConfig,
@@ -42,9 +41,8 @@ def subset_oracle_check(plan, fr, sigma, color, pixels, img_tol=3e-3,
     Depth is DEFINED discontinuously at the opacity epsilon (1e-6,
     int_cpu.cpp:224: below it depth snaps to t_far), so for pixels whose
     opacity sits within a few ulps of the threshold any two correct
-    implementations may take different branches (observed on TPU: f32
-    reassociation in the tile kernel's group sums moves opacity ~1e-7
-    across it). Skip the depth comparison on such knife-edge pixels."""
+    implementations may take different branches (f32 reassociation, e.g.
+    the march kernel's sequential sums, moves opacity ~1e-7 across it). Skip the depth comparison on such knife-edge pixels."""
     from dvren_tpu.ops.integrate import OPACITY_EPS
 
     K = np.asarray(plan.camera.k).reshape(3, 3)
@@ -184,59 +182,3 @@ def test_pose_refinement_converges():
     err1 = float(jnp.abs(t - t_true).max())
     assert float(l) < l0 * 0.2
     assert err1 < err0 * 0.5
-
-
-@pytest.mark.slow
-def test_pose_refinement_converges_tiled():
-    """Pose refinement riding the TILED fast path (round 3): camera
-    gradients come from the fused kernel's ray-plane adjoint; the
-    schedule is rebuilt whenever the camera estimate moves (it bakes the
-    camera, like CUDA-graph capture specializes launch parameters)."""
-    import jax
-    import jax.numpy as jnp
-    import optax
-    from dvren_tpu.render.tiled import build_tiled_schedule, render_tiled
-
-    sigma, color = sphere_shell_volume(12, radius=0.3, width=0.08)
-    plan = make_plan(32, 32, dt=0.0625, max_steps=32)
-    field = DenseGridField.create(DenseGridConfig(
-        resolution=(12, 12, 12), sigma=sigma.reshape(-1),
-        color=color.reshape(-1)))
-    k0 = jnp.asarray(plan.camera.k, jnp.float32).reshape(3, 3)
-    true_c2w = jnp.asarray(plan.camera.c2w, jnp.float32).reshape(3, 4)
-    sched0 = build_tiled_schedule(plan, field)
-    target = render_tiled(plan, field, sched0, k=k0, c2w=true_c2w).image
-
-    t_true = true_c2w[:, 3]
-    t0 = t_true + jnp.asarray([0.05, -0.04, 0.0])
-
-    def loss(t, sched):
-        c2w = true_c2w.at[:, 3].set(t)
-        img = render_tiled(plan, field, sched, k=k0, c2w=c2w).image
-        return jnp.mean((img - target) ** 2)
-
-    grad_fn = jax.jit(jax.value_and_grad(loss))
-    opt = optax.adam(1e-2)
-    state = opt.init(t0)
-    t = t0
-    l0 = None
-    for it in range(60):
-        # rebuild the schedule at the current camera estimate every few
-        # steps (windows/cells are baked; gradients are exact AT the
-        # schedule's camera)
-        if it % 10 == 0:
-            import dataclasses as _dc
-            cam = _dc.replace(
-                plan.camera,
-                c2w=tuple(np.asarray(
-                    true_c2w.at[:, 3].set(t)).reshape(-1).tolist()))
-            sched = build_tiled_schedule(plan.with_camera(cam), field)
-        l, g = grad_fn(t, sched)
-        if l0 is None:
-            l0 = float(l)
-        u, state = opt.update(g, state)
-        t = optax.apply_updates(t, u)
-    err0 = float(jnp.abs(t0 - t_true).max())
-    err1 = float(jnp.abs(t - t_true).max())
-    assert float(l) < l0 * 0.5, (float(l), l0)
-    assert err1 < err0 * 0.5, (err1, err0)

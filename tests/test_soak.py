@@ -7,9 +7,8 @@ a 960x720 high-res render (test_smoke_forward_highres.cpp). Here:
   the CPU suite fast; the reference's scale lives in the frame count and
   the per-frame field recreation, test_smoke_animation.cpp:305-331);
 - the high-res suite runs 320x240 through the WINDOWED path by default and
-  the full 960x720 when DVREN_SOAK=1 (CI nightly / TPU sessions; the
-  always-on subset oracle covers correctness, tools/soak.py wires the full
-  config into TPU benchmarking).
+  the full 960x720 when DVREN_SOAK=1 (CI nightly; the always-on subset
+  oracle covers correctness).
 """
 
 import os
@@ -71,7 +70,7 @@ def test_animation_120_frames():
     pytest.param(960, 720, 64, id="960x720-soak",
                  marks=pytest.mark.skipif(
                      not SOAK, reason="set DVREN_SOAK=1 for the full-scale "
-                     "run (tools/soak.py wires it into TPU sessions)")),
+                     "run")),
 ])
 def test_highres_windowed_subset_oracle(w, h, grid):
     """High-res render through the WINDOWED path vs the independent scalar

@@ -5,12 +5,14 @@ three-way test, tests/core/test_core.cpp:27-167)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from dvren_tpu import (
     CameraConfig, DenseGridConfig, DenseGridField, Plan, PlanConfig,
     SamplingConfig, SamplingMode,
 )
-from dvren_tpu.render.pipeline import default_ray_tile, render, render_streamed
+from dvren_tpu.render.pipeline import (default_ray_tile, render,
+                                       render_streamed, stream_needs_remat)
 
 
 def scene(mode=SamplingMode.FIXED, width=20, height=14):
@@ -96,3 +98,46 @@ def test_default_ray_tile_bounds():
         width=512, height=512, t_near=0.0, t_far=2.0,
         sampling=SamplingConfig(dt=0.02, max_steps=128)))
     assert default_ray_tile(big) * 128 <= (1 << 22)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_streamed_gradients_same_with_and_without_remat(remat):
+    """Remat only changes what the backward stores, never the gradient; the
+    default (size-based) choice keeps residuals at this size."""
+    plan, field = scene(mode=SamplingMode.STRATIFIED)
+    assert not stream_needs_remat(plan)
+
+    def grads(remat_arg):
+        def loss(params):
+            f = field.with_params(*params)
+            return jnp.sum(render_streamed(plan, f, ray_tile=64,
+                                           remat=remat_arg).image ** 2)
+        return jax.grad(loss)((field.sigma, field.color))
+
+    # recomputation may fuse differently: 1e-4 of the largest entry
+    # (gradient_adjoint_rtol in tests/thresholds.yaml)
+    for got, want in zip(grads(remat), grads(None)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                   atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("width,steps,budget,want", [
+    (20, 26, None, False),          # test scene, default budget
+    (512, 128, None, True),         # 33.5 M samples: over the CPU's 4 GiB
+    (512, 128, 15 << 30, False),    # ... within a quarter of an 80 GB card
+    (800, 256, 15 << 30, True),     # 164 M samples: the SDF-shell frame
+    (1024, 64, 15 << 30, True),     # 67 M samples
+])
+def test_stream_needs_remat_by_frame_size(width, steps, budget, want):
+    plan = Plan.create(PlanConfig(
+        width=width, height=width, t_near=0.0, t_far=2.0,
+        sampling=SamplingConfig(dt=2.0 / steps, max_steps=steps)))
+    assert stream_needs_remat(plan, budget) is want
+
+
+def test_remat_budget_falls_back_to_4gib_without_a_device_limit():
+    from dvren_tpu.render.pipeline import remat_residual_budget
+
+    assert jax.devices()[0].memory_stats() is None   # the CPU reports none
+    assert remat_residual_budget() == 4 << 30

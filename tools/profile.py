@@ -2,13 +2,16 @@
 
 The analogue of ``hotpath/scripts/profile.py:16-148`` (which wraps the
 runner with an nvidia-smi hardware profile): captures the JAX device
-profile, runs ``bench.py``, collects the Renderer's per-stage timings for a
+profile, runs the benchmark (``bench.measure``, in this process: one JAX
+process per card), collects the Renderer's per-stage timings for a
 representative plan, and writes ``benchmark_results.json`` +
-``profiling_summary.txt``.
+``profiling_summary.txt``. Without a GPU only the device facts and the
+staged timings of the CPU are written; the benchmark is skipped.
 
-Optionally captures an XLA profiler trace (``--trace DIR``) viewable in
-TensorBoard/XProf - the TPU-native replacement for nsys/NVTX (absent in the
-reference, SURVEY.md section 5).
+Optionally captures a ``jax.profiler`` trace (``--trace DIR``) viewable in
+TensorBoard/XProf (the reference has no tracing, SURVEY.md section 5).
+
+Usage: python tools/profile.py [--trace DIR] [--skip-bench]
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -70,17 +72,6 @@ def stage_timings() -> dict:
     }
 
 
-def run_bench() -> dict | None:
-    proc = subprocess.run([sys.executable, os.path.join(REPO, "bench.py")],
-                          capture_output=True, text=True, cwd=REPO)
-    for line in reversed(proc.stdout.strip().splitlines()):
-        try:
-            return json.loads(line)
-        except json.JSONDecodeError:
-            continue
-    return None
-
-
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--output-dir", default=REPO)
@@ -104,8 +95,12 @@ def main() -> int:
     else:
         results["stage_timings"] = stage_timings()
 
-    if not args.skip_bench:
-        results["benchmark"] = run_bench()
+    if not args.skip_bench and results["hardware_profile"]["platform"] \
+            == "gpu":
+        import bench
+
+        bench.use_compile_cache()
+        results["benchmark"] = bench.measure(bench.card_line())
 
     out_json = os.path.join(args.output_dir, "benchmark_results.json")
     with open(out_json, "w") as f:
@@ -124,8 +119,9 @@ def main() -> int:
                 f"compose={st.get('compose_ms', 0):.3f}\n")
         b = results.get("benchmark")
         if b:
-            f.write(f"bench: {b['value']} {b['unit']} "
-                    f"(vs_baseline={b['vs_baseline']})\n")
+            f.write(f"bench: {b['value']} {b['unit']}, train "
+                    f"{b['extra']['train_ms_per_step']} ms/step on "
+                    f"{b['extra']['card']}\n")
     print(json.dumps({"written": [out_json, summary]}))
     return 0
 
